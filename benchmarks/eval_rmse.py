@@ -1,6 +1,6 @@
 """Equal-spp RMSE evaluation: guided sampling vs BSDF sampling.
 
-The BASELINE accuracy metric is "<=1% RMSE vs the reference at equal spp at
+The accuracy metric is "<=1% RMSE vs the reference at equal spp at
 convergence". The CUDA reference cannot execute in this environment, so
 ground truth is this renderer's own converged accumulation (all estimators
 here are unbiased for the same integral and statistically validated against
@@ -31,8 +31,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 def render_mode(mode: str, spp: int, res: int, seed: int,
                 subdivision: int = 1, mis_fraction: float = 0.5):
-    from tpu_pathtracer.app import App
-    from tpu_pathtracer.utils.config import Config
+    from pathtracer.app import App
+    from pathtracer.utils.config import Config
 
     nee = mode.endswith("+nee")
     if nee:

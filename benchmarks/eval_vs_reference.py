@@ -6,7 +6,7 @@ radiosity sweep cbox_sub{N}_step{M}.png) produced from its default view
 application_state.h:282-292) of scenes/cbox_quads.obj at the GLFW
 framebuffer size 1085x1026. This script loads that same scene file and
 camera, re-renders each view with our renderer, and reports RMSE — the
-BASELINE.md "<=1% RMSE vs CUDA reference" check.
+"<=1% RMSE vs CUDA reference" check.
 
 The radiosity sweep is near-deterministic (MC form factors average out at
 64 samples/pair), so those views must match tightly. The path-traced view
@@ -15,7 +15,7 @@ sample count and report its RMSE against our converged render — if the
 cross-renderer residual matches that self-noise yardstick, the estimator
 agrees and the difference is MC variance, not bias.
 
-Usage:
+Usage (REFERENCE_DIR names the reference's checkout; it is required):
   python benchmarks/eval_vs_reference.py radiosity          # sub0..3, step5
   python benchmarks/eval_vs_reference.py radiosity4         # sub4 step0..10
   python benchmarks/eval_vs_reference.py pt [--spp 1024]
@@ -35,8 +35,6 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
 
-REF_SCENE = "/root/reference/scenes/cbox_quads.obj"
-REF_OUT = "/root/reference/outputs"
 HERE = os.path.dirname(os.path.abspath(__file__))
 RESULT = os.path.join(HERE, "eval_vs_reference_result.json")
 OUT_DIR = os.path.join(HERE, "..", "outputs", "ref_compare")
@@ -60,10 +58,25 @@ CAM_ORIGIN = tuple(
 CAM_LOOKAT = (0.0, 2.5, 0.0)
 
 
+def reference_path(*parts: str) -> str:
+    """A file of the CUDA reference's checkout (USharma002/CUDA-PathTracer),
+    whose scene file and published PNGs are the ground truth compared
+    against. Its location is given by REFERENCE_DIR; there is no default."""
+    root = os.environ.get("REFERENCE_DIR")
+    if not root:
+        raise SystemExit(
+            "eval_vs_reference: set REFERENCE_DIR to a checkout of "
+            "USharma002/CUDA-PathTracer (it needs scenes/cbox_quads.obj "
+            "and outputs/*.png)"
+        )
+    return os.path.join(root, *parts)
+
+
 def load_ref_png(name: str) -> np.ndarray:
     from PIL import Image
 
-    return np.asarray(Image.open(os.path.join(REF_OUT, name)).convert("RGB"))
+    return np.asarray(
+        Image.open(reference_path("outputs", name)).convert("RGB"))
 
 
 def edge_mask(img_u8: np.ndarray, dilate: int = 2) -> np.ndarray:
@@ -104,13 +117,13 @@ def build_geom(sub: int, convert_quads: bool = True):
     were produced with quad->triangle conversion ON
     (convertQuadsToTriangles, application_state.h:323-366) before
     subdivision."""
-    from tpu_pathtracer.scene.mesh import (
+    from pathtracer.scene.mesh import (
         convert_quads_to_triangles,
         subdivide,
     )
-    from tpu_pathtracer.scene.obj_loader import load_obj
+    from pathtracer.scene.obj_loader import load_obj
 
-    prims = load_obj(REF_SCENE)
+    prims = load_obj(reference_path("scenes", "cbox_quads.obj"))
     if convert_quads:
         prims = convert_quads_to_triangles(prims)
     if sub:
@@ -119,7 +132,7 @@ def build_geom(sub: int, convert_quads: bool = True):
 
 
 def camera():
-    from tpu_pathtracer.render.camera import CameraController
+    from pathtracer.render.camera import CameraController
 
     return CameraController(
         lookfrom=np.array(CAM_ORIGIN, np.float32),
@@ -142,16 +155,17 @@ def save_result(key: str, value: dict) -> None:
 
 
 def save_png(name: str, img_u8: np.ndarray) -> None:
-    from tpu_pathtracer.utils.png import write_png
+    from pathtracer.utils.png import write_png
 
     os.makedirs(OUT_DIR, exist_ok=True)
     write_png(os.path.join(OUT_DIR, name), img_u8)
 
 
-def render_radiosity_view(geom, radiosity, spp: int) -> np.ndarray:
+def render_radiosity_view(geom, radiosity, spp: int,
+                          accel=None) -> np.ndarray:
     import jax
 
-    from tpu_pathtracer.render.renderer import (
+    from pathtracer.render.renderer import (
         RenderSettings,
         render_radiosity_view as rrv,
     )
@@ -159,28 +173,27 @@ def render_radiosity_view(geom, radiosity, spp: int) -> np.ndarray:
     s = RenderSettings(
         width=W, height=H, spp_per_pass=spp, ray_chunk=65536,
     )
-    img = rrv(geom, radiosity, camera(), jax.random.key(7), s)
+    img = rrv(geom, radiosity, camera(), jax.random.key(7), s,
+              accel=accel)
     return np.asarray(img)[::-1]  # row 0 = top, like the reference PNG
 
 
 def run_radiosity(subs, steps, spp, yardstick=False):
     import jax
 
-    from tpu_pathtracer.ops.intersect_pallas import (
-        pack_prim_ids,
-        pack_triangles,
-    )
-    from tpu_pathtracer.render.radiosity import solve_radiosity
+    from pathtracer.ops import dispatch
+    from pathtracer.render.radiosity import solve_radiosity
 
     for sub in subs:
         geom = build_geom(sub)
-        # Pallas any-hit for FF visibility (like App.run_solver): the
-        # XLA brute fallback is ~10x slower at sub-4 scale.
-        packs = (pack_triangles(geom), pack_prim_ids(geom))
+        # FF visibility through the App's intersection path for this
+        # platform and scene size (like App.run_solver)
+        accel = dispatch.build_accel(geom, dispatch.select_backend(
+            dispatch.current_platform(), geom.num_tris))
         n_iter = max(steps)
         sol = solve_radiosity(
             geom, jax.random.key(12345), num_iterations=n_iter,
-            use_monte_carlo=True, mc_samples=64, occlusion_packs=packs,
+            use_monte_carlo=True, mc_samples=64, accel=accel,
         )
         sol_b = None
         if yardstick:
@@ -191,8 +204,7 @@ def run_radiosity(subs, steps, spp, yardstick=False):
             # noise, not bias.
             sol_b = solve_radiosity(
                 geom, jax.random.key(99991), num_iterations=n_iter,
-                use_monte_carlo=True, mc_samples=64,
-                occlusion_packs=packs,
+                use_monte_carlo=True, mc_samples=64, accel=accel,
             )
         for step in steps:
             if step == n_iter:
@@ -201,14 +213,14 @@ def run_radiosity(subs, steps, spp, yardstick=False):
                 # history_at(k) = k steps back from the latest entry
                 # (which is B after n_iter-1 iterations)
                 rad = sol.history_at(n_iter - 1 - step)
-            ours = render_radiosity_view(geom, rad, spp)
+            ours = render_radiosity_view(geom, rad, spp, accel)
             name = f"cbox_sub{sub}_step{step}.png"
             ref = load_ref_png(name)
             save_png(name, ours)
             save_result(f"radiosity/{name}", compare(ours, ref))
             if sol_b is not None and step == n_iter:
                 rad_b = sol_b.radiosity
-                ours_b = render_radiosity_view(geom, rad_b, spp)
+                ours_b = render_radiosity_view(geom, rad_b, spp, accel)
                 save_result(
                     f"radiosity/cbox_sub{sub}_selfnoise",
                     {**compare(ours, ours_b),
@@ -220,8 +232,8 @@ def run_radiosity(subs, steps, spp, yardstick=False):
 def run_pt(spp: int, ref_spp: int, depth: int):
     import jax
 
-    from tpu_pathtracer.render.camera import CameraController
-    from tpu_pathtracer.render.renderer import (
+    from pathtracer.render.camera import CameraController
+    from pathtracer.render.renderer import (
         ProgressiveRenderer,
         RenderSettings,
     )
@@ -259,7 +271,7 @@ def downsample(img_u8: np.ndarray, k: int = 8) -> np.ndarray:
 
 
 def run_pt_downsampled(k: int = 8):
-    """VERDICT round-2 item 5: full-frame comparison at kx box-downsampled
+    """Full-frame comparison at kx box-downsampled
     resolution, where MC noise averages out (~1/k per axis) and estimator
     BIAS survives. Uses the saved renders from `pt` (same camera/settings):
       cross = ref 23spp  vs our 256spp   (bias + both noises)

@@ -2,10 +2,10 @@
 
 The reference's only regression mechanism is eyeballing PNG sweeps in
 outputs/ (SURVEY.md §4); here goldens are exact float32 radiance images at
-fixed seeds. Because the renderer is bitwise deterministic across CPU and
-TPU (verified: counter-based threefry + f32 VPU intersection), goldens
-generated on any backend must match subsequent renders exactly; the RMSE
-gate additionally guards against intentional-but-small estimator changes.
+fixed seeds. The renderer is bitwise deterministic per platform
+(counter-based threefry + f32 intersection), so CPU goldens must match
+later CPU renders exactly; the RMSE gate additionally guards against
+intentional-but-small estimator changes.
 
 Usage:
     python benchmarks/goldens.py generate   # (re)write goldens/
@@ -22,9 +22,8 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 # Goldens are defined on the CPU brute-force backend (what tests/ use);
-# the App's backend auto-select is platform-dependent and the pallas
-# kernels agree with brute force to ~1e-5, not bitwise — so generation
-# must run on the same platform/backend as verification.
+# generation and verification must run on the same platform, so this
+# tool pins the CPU.
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
@@ -50,7 +49,7 @@ CONFIGS = {
     # NEE exercises the trickiest estimator machinery (last-depth
     # gating + complementary MIS hit weights, integrator.py:203-307);
     # it is also the biggest measured quality lever (2.7-6.9x RMSE),
-    # so it gets the same bitwise net as the other paths (VERDICT r4 #5).
+    # so it gets the same bitwise net as the other paths.
     "cbox_nee": dict(
         scene="cbox_quads", width=64, height=64, spp=16, max_depth=4,
         sampling_mode="bsdf", nee=True, ray_chunk=4096,
@@ -66,8 +65,8 @@ CONFIGS = {
 
 def render(name: str) -> np.ndarray:
     """Render a config to linear mean radiance (or u8 for radiosity view)."""
-    from tpu_pathtracer.app import App
-    from tpu_pathtracer.utils.config import Config
+    from pathtracer.app import App
+    from pathtracer.utils.config import Config
 
     cfg = Config(**CONFIGS[name])
     app = App(cfg)

@@ -1,8 +1,8 @@
-// Native runtime components for tpu_pathtracer.
+// Native runtime components for pathtracer.
 //
 // The reference keeps its scene IO and BVH builder in host C++
-// (/root/reference/include/utils/file_manager.h, rendering/bvh.h); these are
-// the TPU-framework equivalents, exposed through a plain C ABI consumed via
+// (reference/include/utils/file_manager.h, rendering/bvh.h); these are
+// the host-side equivalents, exposed through a plain C ABI consumed via
 // ctypes (no pybind11 in this image). Python fallbacks exist for both, so
 // the shared library is an accelerator, not a hard dependency.
 //
@@ -11,7 +11,7 @@
 //     forms; tris + quads; Kd/Ke; Ks/illum mirror extension).
 //   * tpt_build_bvh: largest-axis midpoint-split builder (leaf <= 4,
 //     degenerate-extent median fallback) over Morton-presorted triangles,
-//     emitting the same flat arrays as tpu_pathtracer.ops.bvh.build_bvh.
+//     emitting the same flat arrays as pathtracer.ops.bvh.build_bvh.
 //
 // Build: make -C native   (produces libtpt_native.so)
 

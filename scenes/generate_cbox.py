@@ -6,7 +6,7 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from tpu_pathtracer.scene.builtin import cornell_box, write_obj  # noqa: E402
+from pathtracer.scene.builtin import cornell_box, write_obj  # noqa: E402
 
 
 def main():

@@ -1,4 +1,4 @@
-"""Generate the LBVH stress scene (BASELINE.json config #4): a ~100k-
+"""Generate the large-scene stress scene (stress100k): a ~100k-
 triangle displaced sphere as binary PLY, wrapped in a .pbrt scene with a
 ground plane and an area light. Run: python scenes/generate_stress.py"""
 

@@ -1,6 +1,6 @@
 """Produce the reference-style output artifact set (outputs/ parity:
 cbox_sub{S}_step{I}.png radiosity sweeps, path-traced renders, delta
-images, mirror demo — SURVEY.md C32). Run on TPU or CPU:
+images, mirror demo — SURVEY.md C32). Run on the GPU or the CPU:
 
     python scenes/make_outputs.py [--fast]
 """
@@ -16,8 +16,8 @@ OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
 
 
 def main(fast: bool = False):
-    from tpu_pathtracer.app import App
-    from tpu_pathtracer.utils.config import Config
+    from pathtracer.app import App
+    from pathtracer.utils.config import Config
 
     os.makedirs(OUT, exist_ok=True)
     res = 256 if fast else 512
@@ -53,7 +53,7 @@ def main(fast: bool = False):
         app.save_png(os.path.join(OUT, f"cbox_pt_{mode}_{spp}spp.png"))
         print(f"pt_{mode}: {time.time()-t0:.1f}s", flush=True)
 
-    # Mirror tall box (BASELINE config #2 capability)
+    # Mirror tall box (the additive mirror lobe)
     cfg = Config(
         scene="cbox_quads", width=res, height=res, spp=spp,
         max_depth=8, sampling_mode="bsdf", mirror_tall_box=True,

@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from tpu_pathtracer.app import App
-from tpu_pathtracer.utils.config import Config
+from pathtracer.app import App
+from pathtracer.utils.config import Config
 
 
 def small_cfg(**kw):
@@ -144,7 +144,7 @@ class TestViewerSet:
         """A /set that changes scene/subdivision must re-run
         load_scene() so new geometry actually renders (reference
         Controls-window reload, ui_windows.h:94-104, 213-224)."""
-        from tpu_pathtracer.viewer.server import ViewerState
+        from pathtracer.viewer.server import ViewerState
 
         state = ViewerState.__new__(ViewerState)  # no render thread
         import threading
@@ -163,7 +163,7 @@ class TestViewerSet:
         assert img.max() > 0
 
     def test_set_non_geo_key_keeps_geometry(self):
-        from tpu_pathtracer.viewer.server import ViewerState
+        from pathtracer.viewer.server import ViewerState
         import threading
 
         state = ViewerState.__new__(ViewerState)
@@ -179,8 +179,8 @@ class TestViewerSet:
 
 
 class TestViewerEndpoints:
-    """HTTP-level coverage of the interactive control surface (VERDICT
-    r3 #3: every reference Controls-window action mouse-reachable).
+    """HTTP-level coverage of the interactive control surface (every
+    reference Controls-window action mouse-reachable).
     A real ThreadingHTTPServer on an ephemeral port, no render thread."""
 
     @pytest.fixture()
@@ -188,7 +188,7 @@ class TestViewerEndpoints:
         import threading
         from http.server import ThreadingHTTPServer
 
-        from tpu_pathtracer.viewer.server import ViewerState, make_handler
+        from pathtracer.viewer.server import ViewerState, make_handler
 
         state = ViewerState.__new__(ViewerState)
         state.app = App(small_cfg(sampling_mode="mis", mc_samples=8,
@@ -323,8 +323,9 @@ class TestViewerEndpoints:
         percentages, ui_windows.h:487-550): returns the traced-device
         breakdown JSON; the page renders it as the stacked bar. On the
         CPU test backend the trace has no device track, so percent may
-        be empty — the shape contract is what's pinned here (the TPU
-        path is exercised by benchmarks/walk_cost_probe.py)."""
+        be empty — the shape contract is what's pinned here (the GPU
+        reduction is tested on a recorded trace in
+        tests/test_kernel_profile.py)."""
         import json as _json
 
         _, port = server
@@ -347,12 +348,12 @@ class TestLegacyRadiosityDisplay:
         import jax.numpy as jnp
         import numpy as np
 
-        from tpu_pathtracer.render.camera import CameraController
-        from tpu_pathtracer.render.renderer import (
+        from pathtracer.render.camera import CameraController
+        from pathtracer.render.renderer import (
             RenderSettings,
             render_radiosity_view,
         )
-        from tpu_pathtracer.scene.builtin import cornell_box
+        from pathtracer.scene.builtin import cornell_box
 
         geom = cornell_box("quads").build()
         cam = CameraController.default().build()
@@ -369,7 +370,7 @@ class TestLegacyRadiosityDisplay:
 
 class TestFFEstimatorConfig:
     """Config.ff_estimator routes the form-factor MC combiner choice
-    through the App (VERDICT r3 #9). The estimator-accuracy claim itself
+    through the App. The estimator-accuracy claim itself
     (per-sample matches closed-form quadrature; the reference's
     ratio-of-averages is Jensen-biased low) is asserted in
     tests/test_radiosity.py::TestFormFactors::
@@ -410,12 +411,12 @@ class TestFFEstimatorConfig:
 class TestCboxMaterialFidelity:
     """The two bundled Cornell variants must carry the reference's exact
     material values: cbox.obj uses the Blender palette (Khaki/BloodyRed/
-    DarkGreen, pure-emitter light) — /root/reference/scenes/cbox.mtl:1-42 —
+    DarkGreen, pure-emitter light) — reference/scenes/cbox.mtl:1-42 —
     while cbox_quads.obj uses white/red/green with a reflective light
     (cbox_quads.mtl:3-17)."""
 
     def test_tris_variant_blender_palette(self):
-        from tpu_pathtracer.scene.builtin import cornell_box
+        from pathtracer.scene.builtin import cornell_box
 
         p = cornell_box("tris")
         kds = {tuple(np.round(a.astype(np.float64), 6)) for a in p.albedo}
@@ -428,7 +429,7 @@ class TestCboxMaterialFidelity:
         assert float(p.emission.max()) == 25.0
 
     def test_quads_variant_palette(self):
-        from tpu_pathtracer.scene.builtin import cornell_box
+        from pathtracer.scene.builtin import cornell_box
 
         p = cornell_box("quads")
         kds = {tuple(np.round(a.astype(np.float64), 6)) for a in p.albedo}
@@ -440,8 +441,8 @@ class TestCboxMaterialFidelity:
 
     def test_bundled_obj_matches_builtin(self):
         """scenes/cbox.obj on disk round-trips to the same materials."""
-        from tpu_pathtracer.scene.builtin import cornell_box
-        from tpu_pathtracer.scene.obj_loader import load_obj
+        from pathtracer.scene.builtin import cornell_box
+        from pathtracer.scene.obj_loader import load_obj
 
         path = os.path.join(
             os.path.dirname(__file__), "..", "scenes", "cbox.obj"

@@ -5,16 +5,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.ops.bvh import (
+from pathtracer.ops.bvh import (
     BVH,
     LEAF_SIZE,
     build_bvh,
     bvh_closest_hit,
     bvh_occluded,
 )
-from tpu_pathtracer.ops.intersect import closest_hit, occluded
-from tpu_pathtracer.scene.builtin import cornell_box
-from tpu_pathtracer.scene.mesh import PrimList, subdivide
+from pathtracer.ops.intersect import closest_hit, occluded
+from pathtracer.scene.builtin import cornell_box
+from pathtracer.scene.mesh import PrimList, subdivide
 
 
 def random_rays(n, seed, lo=-4, hi=4):

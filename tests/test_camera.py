@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.render.camera import CameraController
+from pathtracer.render.camera import CameraController
 
 
 def make(fov=40.0, aspect=1.0):

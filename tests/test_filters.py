@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.ops.filters import (
+from pathtracer.ops.filters import (
     bilateral_filter_rgb,
     bilateral_filter_scalar,
     filter_pdfs,

@@ -1,5 +1,6 @@
 """Golden-image regression tests: fixed-seed renders must match the stored
-goldens bitwise (the renderer is deterministic across CPU/TPU)."""
+goldens bitwise (the renderer is deterministic per platform; the goldens
+are CPU renders)."""
 
 import os
 

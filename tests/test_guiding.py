@@ -6,12 +6,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.core.constants import (
+from pathtracer.core.constants import (
     GRID_HALF_RES,
     GRID_RES,
     GRID_SIZE,
 )
-from tpu_pathtracer.ops.guiding import (
+from pathtracer.ops.guiding import (
     build_cdfs,
     build_cdfs_from_radiosity_grid,
     grid_pdf,
@@ -168,7 +168,7 @@ class TestFetchRows:
     one-hot contraction sums back exactly."""
 
     def test_onehot_bitwise_equals_gather(self):
-        import tpu_pathtracer.ops.guiding as g
+        import pathtracer.ops.guiding as g
 
         key = jax.random.key(3)
         # adversarial values: denormal-ish, huge, negative, exact ints
@@ -182,7 +182,7 @@ class TestFetchRows:
                               np.asarray(table[idx]))
 
     def test_large_table_falls_back(self, monkeypatch):
-        import tpu_pathtracer.ops.guiding as g
+        import pathtracer.ops.guiding as g
 
         table = jax.random.uniform(jax.random.key(5), (2048, 16))
         idx = jax.random.randint(jax.random.key(6), (512,), 0, 2048)

@@ -6,16 +6,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.core.constants import (
+from pathtracer.core.constants import (
     MATERIAL_MIRROR,
     SAMPLING_BSDF,
     SAMPLING_MIS,
     SAMPLING_RADIOSITY,
 )
-from tpu_pathtracer.core import rng as rng_mod
-from tpu_pathtracer.ops.guiding import build_cdfs
-from tpu_pathtracer.render.integrator import trace
-from tpu_pathtracer.scene.mesh import PrimList
+from pathtracer.core import rng as rng_mod
+from pathtracer.ops.guiding import build_cdfs
+from pathtracer.render.integrator import trace
+from pathtracer.scene.mesh import PrimList
 
 
 def closed_cube(albedo=0.5, emit=0.5):
@@ -126,8 +126,8 @@ class TestStats:
 
     def test_ray_counts_include_nee_shadow_rays(self):
         """With nee=True every live diffuse vertex below the last-depth
-        gate fires one occlusion ray; Mrays accounting must count it
-        (VERDICT r3 #2). Closed cube, depth 3: 3n path rays + 2n shadow
+        gate fires one occlusion ray; Mrays accounting must count it.
+        Closed cube, depth 3: 3n path rays + 2n shadow
         rays (depths 0 and 1; depth 2 is the gated last vertex)."""
         n = 1 << 10
         _, stats = run_furnace(SAMPLING_BSDF, depth=3, n=n, nee=True)
@@ -180,8 +180,8 @@ class TestWavefront:
     def test_furnace_matches_analytic(self):
         """The same-pixel-respawn wavefront integrator is an unbiased
         estimator of the same integral as the scan integrator."""
-        from tpu_pathtracer.render.camera import CameraController
-        from tpu_pathtracer.render.integrator import trace_wavefront
+        from pathtracer.render.camera import CameraController
+        from pathtracer.render.integrator import trace_wavefront
 
         geom = closed_cube(0.5, 0.5).build()
         cam = CameraController(
@@ -209,8 +209,8 @@ class TestWavefront:
     def test_respawn_quota_exact(self):
         """Every lane must complete exactly `spp` samples: radiance sums
         scale linearly with spp."""
-        from tpu_pathtracer.render.camera import CameraController
-        from tpu_pathtracer.render.integrator import trace_wavefront
+        from pathtracer.render.camera import CameraController
+        from pathtracer.render.integrator import trace_wavefront
 
         geom = closed_cube(0.0, 1.0).build()  # pure emission, depth 1
         cam = CameraController(
@@ -237,8 +237,8 @@ class TestWavefront:
         """Ray sorting is a pure permutation: RNG draws are keyed by lane
         id (which travels with the permutation), so sorting must not
         change ANY lane's radiance — bitwise."""
-        from tpu_pathtracer.render.camera import CameraController
-        from tpu_pathtracer.render.integrator import trace_wavefront
+        from pathtracer.render.camera import CameraController
+        from pathtracer.render.integrator import trace_wavefront
 
         geom = closed_cube(0.5, 0.5).build()
         cam = CameraController(
@@ -274,12 +274,12 @@ class TestChunkInvariance:
 
     @pytest.mark.parametrize("wavefront", [True, False])
     def test_render_pass_bitwise_chunk_invariant(self, wavefront):
-        from tpu_pathtracer.render.camera import CameraController
-        from tpu_pathtracer.render.renderer import (
+        from pathtracer.render.camera import CameraController
+        from pathtracer.render.renderer import (
             ProgressiveRenderer,
             RenderSettings,
         )
-        from tpu_pathtracer.scene.builtin import cornell_box
+        from pathtracer.scene.builtin import cornell_box
 
         geom = cornell_box("quads").build()
         cam = CameraController.default().build()
@@ -307,7 +307,7 @@ class TestPixelQueues:
         """One emissive quad covering half the view: half the pixels
         miss immediately (cheap lanes), half bounce (expensive lanes) —
         the load shape queue balancing exists for."""
-        from tpu_pathtracer.render.camera import CameraController
+        from pathtracer.render.camera import CameraController
 
         o = np.array([-2.0, -2.0, -3.0])
         u = np.array([2.0, 0.0, 0.0])
@@ -334,7 +334,7 @@ class TestPixelQueues:
 
     @pytest.mark.parametrize("sort_rays", [False, True])
     def test_queued_matches_flat_bitwise(self, sort_rays):
-        from tpu_pathtracer.render.integrator import trace_wavefront
+        from pathtracer.render.integrator import trace_wavefront
 
         geom, cam = self._open_scene()
         n = 512
@@ -369,12 +369,12 @@ class TestPixelQueues:
     def test_balanced_render_pass_bitwise(self):
         """ProgressiveRenderer with balance_lanes=K (probe + dealt lane
         queues) must produce a bitwise-identical film to balance off."""
-        from tpu_pathtracer.render.camera import CameraController
-        from tpu_pathtracer.render.renderer import (
+        from pathtracer.render.camera import CameraController
+        from pathtracer.render.renderer import (
             ProgressiveRenderer,
             RenderSettings,
         )
-        from tpu_pathtracer.scene.builtin import cornell_box
+        from pathtracer.scene.builtin import cornell_box
 
         geom = cornell_box("quads").build()
         cam = CameraController.default().build()
@@ -392,42 +392,15 @@ class TestPixelQueues:
         np.testing.assert_array_equal(films[0], films[1])
         assert np.isfinite(films[0]).all() and films[0].max() > 0
 
-    def test_tile_sync_bitwise(self):
-        """Tile-synchronized queue advance (balance_tile_sync) is pure
-        scheduling: same film, bitwise, as asynchronous advance."""
-        from tpu_pathtracer.render.integrator import trace_wavefront
-
-        geom, cam = self._open_scene()
-        n = 2048
-        ids = jnp.arange(n, dtype=jnp.int32)
-        x = (ids % 64).astype(jnp.float32)
-        y = (ids // 64).astype(jnp.float32)
-        kw = dict(width=64, height=32, spp=2, max_depth=3,
-                  mode=SAMPLING_BSDF)
-        key = rng_mod.base_key(5)
-        q = ids.reshape(2, n // 2).T        # adversarial pairing
-        t0, r0, _ = trace_wavefront(
-            geom, cam, x[q], y[q], key, lane_ids=ids[q], **kw
-        )
-        t1, r1, _ = trace_wavefront(
-            geom, cam, x[q], y[q], key, lane_ids=ids[q],
-            tile_sync=1024, **kw
-        )
-        np.testing.assert_array_equal(np.asarray(t0), np.asarray(t1))
-        assert int(r0) == int(r1)
-        with pytest.raises(ValueError):
-            trace_wavefront(geom, cam, x[q], y[q], key, lane_ids=ids[q],
-                            tile_sync=1024, sort_rays=True, **kw)
-
     def test_balance_fallback_untileable(self):
         """Shapes that don't tile (npix % (1024*K) != 0) must fall back
         to the unbalanced path, bitwise-unchanged."""
-        from tpu_pathtracer.render.camera import CameraController
-        from tpu_pathtracer.render.renderer import (
+        from pathtracer.render.camera import CameraController
+        from pathtracer.render.renderer import (
             ProgressiveRenderer,
             RenderSettings,
         )
-        from tpu_pathtracer.scene.builtin import cornell_box
+        from pathtracer.scene.builtin import cornell_box
 
         geom = cornell_box("quads").build()
         cam = CameraController.default().build()
@@ -467,7 +440,7 @@ class TestNextEventEstimation:
         """Enabling NEE appends RNG columns; with the term masked out
         lane draws for the base estimator are identical, so a scene
         with NO sampleable lights renders bitwise-identically."""
-        from tpu_pathtracer.render.integrator import (
+        from pathtracer.render.integrator import (
             build_nee_pack, nee_hit_weight,
         )
         geom = closed_cube(emit=0.0).build()    # no emitters: poa == 0
@@ -480,10 +453,10 @@ class TestNextEventEstimation:
     def test_hit_weight_sentinel_and_off_table(self):
         """prev_pdf < 0 (camera/mirror) and off-table emitters must both
         give hit-side weight exactly 1."""
-        from tpu_pathtracer.render.integrator import (
+        from pathtracer.render.integrator import (
             build_nee_pack, nee_hit_weight,
         )
-        from tpu_pathtracer.ops.intersect import closest_hit
+        from pathtracer.ops.intersect import closest_hit
         geom = closed_cube(emit=0.5).build()
         pack = build_nee_pack(geom)
         o, d = random_inside_rays(64)
@@ -497,12 +470,12 @@ class TestNextEventEstimation:
     def test_wavefront_matches_scan_mean(self):
         """Same estimator in both integrators: cbox means agree within
         combined MC error at equal spp."""
-        from tpu_pathtracer.render.camera import CameraController
-        from tpu_pathtracer.render.renderer import (
+        from pathtracer.render.camera import CameraController
+        from pathtracer.render.renderer import (
             ProgressiveRenderer,
             RenderSettings,
         )
-        from tpu_pathtracer.scene.builtin import cornell_box
+        from pathtracer.scene.builtin import cornell_box
 
         geom = cornell_box("quads").build()
         cam = CameraController.default().build()
@@ -520,12 +493,12 @@ class TestNextEventEstimation:
         """The capability claim: on the cbox (small ceiling light) NEE
         at 8 spp must beat BSDF-only at 8 spp by >2x RMSE against a
         256-spp NEE reference (measured ~7x at 16 spp / 128^2)."""
-        from tpu_pathtracer.render.camera import CameraController
-        from tpu_pathtracer.render.renderer import (
+        from pathtracer.render.camera import CameraController
+        from pathtracer.render.renderer import (
             ProgressiveRenderer,
             RenderSettings,
         )
-        from tpu_pathtracer.scene.builtin import cornell_box
+        from pathtracer.scene.builtin import cornell_box
 
         geom = cornell_box("quads").build()
         cam = CameraController.default().build()

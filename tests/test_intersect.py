@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.ops.intersect import closest_hit, occluded
-from tpu_pathtracer.scene.builtin import cornell_box
-from tpu_pathtracer.scene.mesh import PrimList, make_triangle_corners
+from pathtracer.ops.intersect import closest_hit, occluded
+from pathtracer.scene.builtin import cornell_box
+from pathtracer.scene.mesh import PrimList, make_triangle_corners
 
 
 def mt_oracle(o, d, v0, v1, v2, t_min=1e-4):
@@ -189,9 +189,9 @@ class TestTriangleBlocking:
     fuses the FMA chains differently per compilation)."""
 
     def test_blocked_matches_single_block(self, monkeypatch):
-        import tpu_pathtracer.ops.intersect as it
-        from tpu_pathtracer.scene.builtin import cornell_box
-        from tpu_pathtracer.scene.mesh import subdivide
+        import pathtracer.ops.intersect as it
+        from pathtracer.scene.builtin import cornell_box
+        from pathtracer.scene.mesh import subdivide
 
         geom = subdivide(cornell_box("quads"), 3).build()  # 2048 tris
         key = jax.random.key(11)

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.core import math_utils as mu
+from pathtracer.core import math_utils as mu
 
 
 def random_unit(n, seed=0):

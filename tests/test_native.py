@@ -5,11 +5,11 @@ the Python implementations."""
 import numpy as np
 import pytest
 
-from tpu_pathtracer.ops.bvh import LEAF_SIZE, build_bvh
-from tpu_pathtracer.scene.builtin import cornell_box, write_obj
-from tpu_pathtracer.scene.mesh import subdivide
-from tpu_pathtracer.scene.obj_loader import _load_obj_py
-from tpu_pathtracer.utils.native import (
+from pathtracer.ops.bvh import LEAF_SIZE, build_bvh
+from pathtracer.scene.builtin import cornell_box, write_obj
+from pathtracer.scene.mesh import subdivide
+from pathtracer.scene.obj_loader import _load_obj_py
+from pathtracer.utils.native import (
     get_lib,
     native_build_bvh,
     native_load_obj,

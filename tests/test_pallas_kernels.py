@@ -1,29 +1,21 @@
-"""Pallas intersector kernels, run in interpreter mode on CPU: must match
-the (oracle-tested) XLA brute-force intersector exactly."""
+"""Fused hit kernels (ops/intersect_triton), run in the Pallas interpreter
+on the CPU: they must match the (oracle-tested) XLA brute force exactly,
+keep its semantics, and never pick interpret mode by themselves."""
 
 import jax
-import jax.experimental.pallas as pl
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import tpu_pathtracer.ops.intersect_pallas as ip
-import tpu_pathtracer.ops.intersect_pallas_legacy as ipl
-from tpu_pathtracer.ops.intersect import closest_hit
-from tpu_pathtracer.scene.builtin import cornell_box
-from tpu_pathtracer.scene.mesh import subdivide
-from tpu_pathtracer.render.camera import CameraController
+import pathtracer.ops.intersect_triton as it
+from pathtracer.ops.intersect import closest_hit, occluded
+from pathtracer.render.camera import CameraController
+from pathtracer.scene.builtin import cornell_box
+from pathtracer.scene.mesh import PrimList, subdivide
 
 
-@pytest.fixture(autouse=True)
-def interpret_mode(monkeypatch):
-    orig = pl.pallas_call
-
-    def patched(*a, **k):
-        k["interpret"] = True
-        return orig(*a, **k)
-
-    monkeypatch.setattr(ip.pl, "pallas_call", patched)
+def pack(geom, guide_table=None):
+    return it.pack_triangles(geom, guide_table, interpret=True)
 
 
 def rays(n, seed=0):
@@ -32,42 +24,72 @@ def rays(n, seed=0):
     return cam.get_rays(u[0], u[1])
 
 
+def soup(n_tris, seed=0):
+    """n_tris random triangles in [-1, 1]^3 (one logical primitive each),
+    one in ten emissive."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-1.0, 1.0, (n_tris, 3))
+    b = a + rng.uniform(-0.4, 0.4, (n_tris, 3))
+    c = a + rng.uniform(-0.4, 0.4, (n_tris, 3))
+    corners = np.stack([a, b, c, c], axis=1).astype(np.float32)
+    emission = np.zeros((n_tris, 3), np.float32)
+    emission[::10] = 1.0
+    return PrimList(
+        corners=corners,
+        is_quad=np.zeros(n_tris, bool),
+        albedo=rng.uniform(0.1, 0.9, (n_tris, 3)).astype(np.float32),
+        emission=emission,
+        material=(rng.uniform(size=n_tris) < 0.2).astype(np.int32),
+    ).build()
+
+
+def random_rays(n, seed):
+    k1, k2 = jax.random.split(jax.random.key(seed))
+    o = jax.random.uniform(k1, (n, 3), minval=-1.5, maxval=1.5)
+    d = jax.random.normal(k2, (n, 3))
+    return o, d / jnp.linalg.norm(d, axis=-1, keepdims=True)
+
+
+def assert_same_hits(hit, ref):
+    """Same hits; t to 1e-5 relative plus 1e-6 absolute: the interpreter
+    and XLA:CPU fuse the multiply-adds differently, which shows in the
+    last bits where origins sit close to a surface (on the card the two
+    agree bitwise, chip_smoke phase b)."""
+    m = np.asarray(ref.valid)
+    np.testing.assert_array_equal(np.asarray(hit.valid), m)
+    np.testing.assert_allclose(
+        np.asarray(hit.t)[m], np.asarray(ref.t)[m], rtol=1e-5, atol=1e-6
+    )
+    for f in ("prim", "n", "albedo", "emission", "material"):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(hit, f))[m], np.asarray(getattr(ref, f))[m],
+            err_msg=f,
+        )
+
+
 class TestClosest:
     def test_matches_bruteforce(self):
         geom = cornell_box("quads").build()
         o, d = rays(1024)
-        tp = ip.pack_triangles(geom)
-        t, idx = ip.pallas_closest_tuv(tp, o, d)
-        ref = closest_hit(geom, o, d)
-        m = np.asarray(ref.valid)
-        assert (np.isfinite(np.asarray(t)) == m).all()
-        np.testing.assert_allclose(
-            np.asarray(t)[m], np.asarray(ref.t)[m], rtol=1e-5
-        )
-
-    def test_multi_chunk_triangles(self):
-        """> 128 triangles exercises the chunk loop."""
-        geom = subdivide(cornell_box("quads"), 2).build()  # 512 tris
-        o, d = rays(1024, seed=3)
-        tp = ip.pack_triangles(geom)
-        ap = ip.pack_attributes(geom)
-        hit = ip.pallas_closest_hit(geom, tp, o, d, attr_pack=ap)
+        hit = it.kernel_closest_hit(pack(geom), o, d)
         ref = closest_hit(geom, o, d)
         m = np.asarray(ref.valid)
         assert (np.asarray(hit.valid) == m).all()
         np.testing.assert_allclose(
             np.asarray(hit.t)[m], np.asarray(ref.t)[m], rtol=1e-5
         )
-        np.testing.assert_array_equal(
-            np.asarray(hit.prim)[m], np.asarray(ref.prim)[m]
-        )
+
+    def test_multi_chunk_triangles(self):
+        """More triangles than one TRI_BLOCK exercises the block loop."""
+        geom = subdivide(cornell_box("quads"), 2).build()  # 512 tris
+        o, d = rays(1024, seed=3)
+        assert_same_hits(it.kernel_closest_hit(pack(geom), o, d),
+                         closest_hit(geom, o, d))
 
     def test_attributes_exact(self):
         geom = cornell_box("quads", mirror_tall_box=True).build()
         o, d = rays(1024, seed=1)
-        tp = ip.pack_triangles(geom)
-        ap = ip.pack_attributes(geom)
-        hit = ip.pallas_closest_hit(geom, tp, o, d, attr_pack=ap)
+        hit = it.kernel_closest_hit(pack(geom), o, d)
         ref = closest_hit(geom, o, d)
         m = np.asarray(ref.valid)
         for field in ("n", "albedo", "emission"):
@@ -79,237 +101,106 @@ class TestClosest:
         np.testing.assert_array_equal(
             np.asarray(hit.material)[m], np.asarray(ref.material)[m]
         )
+        assert hit.guide is None
 
     def test_t_min(self):
         geom = cornell_box("quads").build()
         # ray resting on the floor pointing up: t_min must skip the floor
         o = jnp.broadcast_to(jnp.array([0.0, 0.0, -2.75]), (1024, 3))
         d = jnp.broadcast_to(jnp.array([0.0, 1.0, 0.0]), (1024, 3))
-        tp = ip.pack_triangles(geom)
-        t, _ = ip.pallas_closest_tuv(tp, o, d, t_min=1e-4)
+        t, _, _ = it.closest_record(pack(geom), o, d, t_min=1e-4)
         assert float(t[0]) > 1.0  # hits the light, not the floor
 
     def test_miss_lanes(self):
         geom = cornell_box("quads").build()
-        o = jnp.broadcast_to(jnp.array([0.0, 2.5, 20.0]), (1024, 3))
-        d = jnp.broadcast_to(jnp.array([0.0, 0.0, 1.0]), (1024, 3))
-        tp = ip.pack_triangles(geom)
-        ap = ip.pack_attributes(geom)
-        hit = ip.pallas_closest_hit(geom, tp, o, d, attr_pack=ap)
+        o = jnp.broadcast_to(jnp.array([0.0, 2.5, 20.0]), (1000, 3))
+        d = jnp.broadcast_to(jnp.array([0.0, 0.0, 1.0]), (1000, 3))
+        hit = it.kernel_closest_hit(pack(geom), o, d)
         assert not bool(hit.valid.any())
         assert float(jnp.sum(hit.emission)) == 0.0
+        assert not bool(hit.prim.any())
 
 
-class TestCulled:
-    def test_matches_bruteforce(self):
-        """Cluster-culled kernel must agree with brute force on a multi-
-        cluster scene for coherent and incoherent rays."""
-        geom = subdivide(cornell_box("quads"), 2).build()  # 512 tris
-        cs = ip.CulledScene(geom)
-        # 512 tris = 4 real clusters, bucketed to the _SC=8 compile-
-        # cache shape (pad rows carry NaN bounds and never schedule)
-        assert cs.cluster_min.shape[0] == 8
-        for seed in (0, 5):
-            o, d = rays(2048, seed=seed)
-            hit = cs.closest_hit(geom, o, d)
-            ref = closest_hit(geom, o, d)
-            m = np.asarray(ref.valid)
-            assert (np.asarray(hit.valid) == m).all()
-            np.testing.assert_allclose(
-                np.asarray(hit.t)[m], np.asarray(ref.t)[m], rtol=1e-5
-            )
-            np.testing.assert_array_equal(
-                np.asarray(hit.prim)[m], np.asarray(ref.prim)[m]
-            )
+class TestKernelVsReference:
+    """Any triangle count (padding to whole triangle blocks) and any ray
+    count (padding to whole ray blocks)."""
 
-    def test_incoherent_multi_step_batches(self):
-        """Regression (ADVICE r1): a grid step spans ROWS_PER_STEP lane
-        rows = 4 mask tiles; every row must read ITS tile's cull mask.
-        8192 incoherent rays (random origins in the box, random dirs)
-        give every tile a different mask, so a wrong-tile read shows up
-        as missed hits. Also covers non-multiple-of-4096 batches (the
-        old assert allowed 1024-ray multiples that produced grid=0)."""
-        geom = subdivide(cornell_box("quads"), 3).build()  # 2048 tris
-        cs = ip.CulledScene(geom)
-        key = jax.random.key(42)
-        for n in (8192, 1024 + 512):  # multi-step + pad path
-            ko, kd = jax.random.split(jax.random.fold_in(key, n))
-            o = jax.random.uniform(
-                ko, (n, 3), minval=-2.5, maxval=2.5
-            ) + jnp.array([0.0, 2.75, 0.0])
-            d = jax.random.normal(kd, (n, 3))
-            d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-            t, ridx = ipl.pallas_closest_tuv_culled(
-                cs.tri_pack, cs.cluster_min, cs.cluster_max, o, d
-            )
-            ref = closest_hit(geom, o, d)
-            m = np.asarray(ref.valid)
-            assert (np.isfinite(np.asarray(t)) == m).all()
-            # rtol 1e-4: random in-box origins land nearly on surfaces,
-            # where t ~ 1e-3 picks up FP-order noise between kernels
-            np.testing.assert_allclose(
-                np.asarray(t)[m], np.asarray(ref.t)[m],
-                rtol=1e-4, atol=1e-6,
-            )
-            tri_idx = np.asarray(cs.order)[np.asarray(ridx)]
-            np.testing.assert_array_equal(
-                np.asarray(geom.tri_prim)[tri_idx][m],
-                np.asarray(ref.prim)[m],
-            )
+    @pytest.mark.parametrize("n_rays", [1000, 4096])
+    @pytest.mark.parametrize("n_tris", [1, 32, 200, 1030])
+    def test_closest_matches_reference(self, n_tris, n_rays):
+        geom = soup(n_tris, seed=n_tris)
+        o, d = random_rays(n_rays, seed=n_tris + n_rays)
+        hit = it.kernel_closest_hit(pack(geom), o, d)
+        ref = closest_hit(geom, o, d)
+        assert_same_hits(hit, ref)
+        assert hit.t.shape == (n_rays,) and hit.n.shape == (n_rays, 3)
+        if n_tris > 1:
+            assert int(ref.valid.sum()) > 0
 
-    def test_sort_rays_bitwise_invariant(self):
-        """sort_rays=True re-orders the batch by nearest-cluster key
-        but must return bitwise-identical (t, id) in the caller's lane
-        order (deterministic tie-breaks make per-ray results order-
-        invariant). Incoherent rays so the permutation is nontrivial."""
-        geom = subdivide(cornell_box("quads"), 3).build()  # 2048 tris
-        key = jax.random.key(7)
-        ko, kd = jax.random.split(key)
-        n = 8192
-        o = jax.random.uniform(
-            ko, (n, 3), minval=-2.5, maxval=2.5
-        ) + jnp.array([0.0, 2.75, 0.0])
-        d = jax.random.normal(kd, (n, 3))
-        d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-        cs = ip.CulledScene(geom)
-        t0, i0 = ipl.pallas_closest_tuv_dma(
-            cs.tri_pack, cs.cluster_min, cs.cluster_max, o, d
-        )
-        t1, i1 = ipl.pallas_closest_tuv_dma(
-            cs.tri_pack, cs.cluster_min, cs.cluster_max, o, d,
-            sort_rays=True,
-        )
-        np.testing.assert_array_equal(np.asarray(t0), np.asarray(t1))
-        np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
-        # the sorted CulledScene end-to-end: Hit fields identical too
-        cs_s = ip.CulledScene(geom, sort_rays=True)
-        h0 = cs.closest_hit(geom, o, d)
-        h1 = cs_s.closest_hit(geom, o, d)
-        for f in ("valid", "t", "prim", "n", "albedo", "emission"):
-            np.testing.assert_array_equal(
-                np.asarray(getattr(h0, f)), np.asarray(getattr(h1, f))
-            )
-
-    def test_mask_covers_all_hit_clusters(self):
-        """The XLA pre-pass must never cull a cluster a ray hits."""
-        geom = subdivide(cornell_box("quads"), 2).build()
-        cs = ip.CulledScene(geom)
-        n = ip.ray_batch_multiple()
-        o, d = rays(n, seed=9)
-        mask = ipl._cluster_mask(
-            cs.cluster_min, cs.cluster_max, o, d, 1e-4
-        )
-        hit = cs.closest_hit(geom, o, d)
-        # winner triangle's cluster must be flagged in its tile's mask
-        ridx = np.asarray(
-            ipl.pallas_closest_tuv_culled(
-                cs.tri_pack, cs.cluster_min, cs.cluster_max, o, d
-            )[1]
-        )
-        m = np.asarray(hit.valid)
-        clusters = (ridx // ip.TRI_CHUNK)[m]
-        tiles = (np.arange(n) // ip.RAYS_PER_TILE)[m]
-        flat = np.asarray(mask).reshape(mask.shape[0], -1)
-        assert all(flat[t, c] > 0 for t, c in zip(tiles, clusters))
+    @pytest.mark.parametrize("excl", ["none", "a", "ab", "scaled"])
+    def test_anyhit_matches_occluded(self, excl):
+        geom = soup(200, seed=7)
+        o, d = random_rays(1000, seed=8)
+        ref_hit = closest_hit(geom, o, d)
+        maxd = jnp.where(ref_hit.valid, ref_hit.t * 1.5, 2.0)
+        ex_a = ex_b = None
+        if excl in ("a", "ab"):
+            ex_a = ref_hit.prim
+        if excl == "ab":
+            ex_b = (ref_hit.prim + 1) % geom.num_prims
+        if excl == "scaled":
+            maxd = maxd * 4.0
+        got = it.kernel_occluded(pack(geom), o, d, maxd, ex_a, ex_b)
+        want = occluded(geom, o, d, maxd, ex_a, ex_b)
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+        assert 0 < int(want.sum()) < 1000
 
 
-class TestTileSwizzle:
-    """The lane->pixel tile swizzle used for the culled backend
-    (renderer._tile_swizzle): 128-lane kernel rows must cover compact
-    16x8 pixel blocks and the film must be bitwise invariant to the
-    relabeling (pixel-keyed RNG)."""
-
-    def test_permutation_structure(self):
-        from tpu_pathtracer.render.renderer import _tile_swizzle
-
-        perm, inv = _tile_swizzle(64, 64, 4096)
-        assert np.array_equal(np.sort(perm), np.arange(4096))
-        assert np.array_equal(inv[perm], np.arange(4096))
-        # each 128-lane row is a 16x8 pixel block
-        for start in (0, 128, 1024, 4096 - 128):
-            xs = perm[start:start + 128] % 64
-            ys = perm[start:start + 128] // 64
-            assert xs.max() - xs.min() == 15
-            assert ys.max() - ys.min() == 7
-        # each 1024-lane kernel tile is a 32x32 pixel tile
-        xs, ys = perm[:1024] % 64, perm[:1024] // 64
-        assert xs.max() - xs.min() == 31 and ys.max() - ys.min() == 31
-        # each 8-lane group (grouped-kernel cull granule) is a compact
-        # 4x2 pixel sub-block, not an 8x1 strip
-        for start in range(0, 4096, 8):
-            xs = perm[start:start + 8] % 64
-            ys = perm[start:start + 8] // 64
-            assert xs.max() - xs.min() == 3
-            assert ys.max() - ys.min() == 1
-
-    def test_non_tileable_images_fall_back(self):
-        from tpu_pathtracer.render.renderer import _tile_swizzle
-
-        assert _tile_swizzle(100, 100, 10000) is None
-        assert _tile_swizzle(64, 64, 4095) is None
-
-    def test_render_bitwise_invariant_to_swizzle(self, monkeypatch):
-        import tpu_pathtracer.render.renderer as rr
-
+class TestNoImplicitInterpret:
+    def test_closest_without_interpret_raises_off_gpu(self):
         geom = cornell_box("quads").build()
-        cam = CameraController.default().build()
-        s = rr.RenderSettings(
-            width=64, height=64, max_depth=2, spp_per_pass=1,
-            ray_chunk=4096, wavefront=True,
-        )
-        cs = ip.CulledScene(geom)
+        p = it.pack_triangles(geom)
+        assert p.interpret is False      # interpret is opt-in only
+        o, d = rays(128)
+        with pytest.raises(RuntimeError, match="only for the GPU"):
+            it.kernel_closest_hit(p, o, d)
 
-        def render():
-            r = rr.ProgressiveRenderer(geom, cam, s, culled=cs)
-            r.step()
-            return np.asarray(r.film.accum)
-
-        a = render()
-        assert np.isfinite(a).all() and a.max() > 0
-        # disable the swizzle and clear the jit cache (the permutation
-        # is baked into the traced render_pass as a constant)
-        monkeypatch.setattr(rr, "_tile_swizzle", lambda *a_: None)
-        jax.clear_caches()
-        b = render()
-        np.testing.assert_array_equal(a, b)
+    def test_anyhit_without_interpret_raises_off_gpu(self):
+        geom = cornell_box("quads").build()
+        o, d = rays(128)
+        with pytest.raises(RuntimeError, match="interpret=True"):
+            it.kernel_occluded(it.pack_triangles(geom), o, d,
+                               jnp.ones((128,)))
 
 
 class TestGuideAugmentedPack:
-    """pack_attributes(guide_table=...): the hit kernel's one-hot
-    contraction must deliver exactly prim_table[hit.prim], and a guided
-    render through the augmented pack must be bitwise identical to the
-    fetch-in-integrator path."""
+    """pack_triangles(guide_table=...): the hit kernel must deliver exactly
+    prim_table[hit.prim], and a guided render through the augmented pack
+    must be bitwise identical to the fetch-in-integrator path."""
 
     def test_guide_rows_match_table(self):
-        import jax
-
-        from tpu_pathtracer.core.math_utils import luminance
-        from tpu_pathtracer.ops.guiding import build_cdfs
-        from tpu_pathtracer.render.radiosity import solve_radiosity
+        from pathtracer.core.math_utils import luminance
+        from pathtracer.ops.guiding import build_cdfs
+        from pathtracer.render.radiosity import solve_radiosity
 
         geom = cornell_box("quads").build()
         sol = solve_radiosity(geom, jax.random.key(1),
                               num_iterations=4, mc_samples=8)
         cdfs = build_cdfs(luminance(sol.rad_grid))
-        tp = ip.pack_triangles(geom)
-        ap = ip.pack_attributes(
-            geom, guide_table=np.asarray(cdfs.prim_table)
-        )
+        p = pack(geom, guide_table=np.asarray(cdfs.prim_table))
         o, d = rays(1024, seed=3)
-        hit = ip.pallas_closest_hit(geom, tp, o, d, attr_pack=ap)
+        hit = it.kernel_closest_hit(p, o, d)
         assert hit.guide is not None and hit.guide.shape == (1024, 16)
         m = np.asarray(hit.valid)
         want = np.asarray(cdfs.prim_table)[np.asarray(hit.prim)[m]]
         np.testing.assert_array_equal(np.asarray(hit.guide)[m], want)
 
     def test_guided_render_bitwise(self):
-        import jax
-
-        from tpu_pathtracer.core.constants import SAMPLING_MIS
-        from tpu_pathtracer.core.math_utils import luminance
-        from tpu_pathtracer.ops.guiding import build_cdfs
-        from tpu_pathtracer.render.radiosity import solve_radiosity
-        from tpu_pathtracer.render.renderer import (
+        from pathtracer.core.constants import SAMPLING_MIS
+        from pathtracer.core.math_utils import luminance
+        from pathtracer.ops.guiding import build_cdfs
+        from pathtracer.render.radiosity import solve_radiosity
+        from pathtracer.render.renderer import (
             ProgressiveRenderer,
             RenderSettings,
         )
@@ -324,558 +215,31 @@ class TestGuideAugmentedPack:
                            wavefront=True, sampling_mode=SAMPLING_MIS)
 
         def render(with_pack):
-            kw = {}
-            if with_pack:
-                kw = dict(tri_pack=ip.pack_triangles(geom),
-                          attr_pack=ip.pack_attributes(geom))
-            r = ProgressiveRenderer(geom, cam, s, cdfs=cdfs, **kw)
+            accel = pack(geom) if with_pack else None
+            r = ProgressiveRenderer(geom, cam, s, cdfs=cdfs, accel=accel)
             if with_pack:  # renderer must have auto-augmented the pack
-                assert r.attr_pack.shape[0] == 32
+                assert r.accel.has_guide
             r.step()
             return np.asarray(r.film.accum)
 
         np.testing.assert_array_equal(render(True), render(False))
 
 
-class TestGroupedDMA:
-    """Second-generation 8-ray-group culled kernel: must agree with the
-    brute-force oracle on incoherent batches (the bounce-ray shape that
-    motivated it)."""
-
-    def test_matches_bruteforce_incoherent(self):
-        geom = subdivide(cornell_box("quads"), 3).build()  # 2048 tris
-        key = jax.random.key(11)
-        ko, kd = jax.random.split(key)
-        n = 4096
-        o = jax.random.uniform(
-            ko, (n, 3), minval=-2.5, maxval=2.5
-        ) + jnp.array([0.0, 2.75, 0.0])
-        d = jax.random.normal(kd, (n, 3))
-        d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-        cs = ip.CulledScene(geom)
-        t, ridx = ip.pallas_closest_tuv_dma_grouped(
-            cs.tri_pack, cs.cluster_min, cs.cluster_max, o, d
-        )
-        ref = closest_hit(geom, o, d)
-        m = np.asarray(ref.valid)
-        assert (np.isfinite(np.asarray(t)) == m).all()
-        # atol floors the rtol check for near-t_min hits, where the
-        # (8,1)x(1,128) broadcast shape fuses FMAs differently than the
-        # brute kernel (eps-level backend agreement, like bvh/culled)
-        np.testing.assert_allclose(
-            np.asarray(t)[m], np.asarray(ref.t)[m], rtol=1e-5, atol=1e-6
-        )
-        tri_idx = np.asarray(cs.order)[np.asarray(ridx)]
-        np.testing.assert_array_equal(
-            np.asarray(geom.tri_prim)[tri_idx][m],
-            np.asarray(ref.prim)[m],
-        )
-
-    def test_regroup_matches_plain(self):
-        """Within-tile (octant, nearest-cluster) regrouping is a pure
-        lane permutation around the kernel: per-ray t bitwise equal,
-        same winning source prim (reordered id may differ only on
-        exact-tie geometry; t never does)."""
-        geom = subdivide(cornell_box("quads"), 3).build()
-        key = jax.random.key(3)
-        ko, kd, km = jax.random.split(key, 3)
-        n = 4096
-        o = jax.random.uniform(
-            ko, (n, 3), minval=-2.5, maxval=2.5
-        ) + jnp.array([0.0, 2.75, 0.0])
-        d = jax.random.normal(kd, (n, 3))
-        d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-        cm = jax.random.uniform(km, (n,)) < 0.3  # mixed camera/bounce
-        cs = ip.CulledScene(geom)
-        cs_r = ip.CulledScene(geom, regroup=True)
-        assert cs_r.regroup
-        h0 = cs.closest_hit(geom, o, d)
-        h1 = cs_r.closest_hit(geom, o, d, camera_mask=cm)
-        np.testing.assert_array_equal(np.asarray(h0.t), np.asarray(h1.t))
-        np.testing.assert_array_equal(
-            np.asarray(h0.prim), np.asarray(h1.prim)
-        )
-        h2 = cs_r.closest_hit(geom, o, d)  # no camera hint: still exact
-        np.testing.assert_array_equal(np.asarray(h0.t), np.asarray(h2.t))
-
-    def test_matches_dma_kernel(self):
-        """Grouped and row-granular kernels share tie-break semantics up
-        to schedule order; t must agree exactly on a coherent batch."""
-        geom = subdivide(cornell_box("quads"), 2).build()
-        n = ip.ray_batch_multiple()
-        o, d = rays(n, seed=5)
-        cs = ip.CulledScene(geom)
-        t0, _ = ipl.pallas_closest_tuv_dma(
-            cs.tri_pack, cs.cluster_min, cs.cluster_max, o, d
-        )
-        t1, _ = ip.pallas_closest_tuv_dma_grouped(
-            cs.tri_pack, cs.cluster_min, cs.cluster_max, o, d
-        )
-        np.testing.assert_allclose(
-            np.asarray(t0), np.asarray(t1), rtol=1e-6
-        )
+@pytest.fixture
+def gpu():
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip("needs a GPU: chip_smoke.py phase (b) runs this check "
+                    "on the card")
 
 
-class TestScheduleKeyPacking:
-    def test_fields_fit_int32(self):
-        """The packed schedule key must carry every field below the
-        inactive bit without overflow at the maxima: 13 id bits (1.05M
-        triangles), 8 row-mask bits, bucket bits up to bit 29. A field
-        widening that silently eats a neighbor would corrupt schedules
-        only on huge scenes — guard the arithmetic here."""
-        id_max = ip._MAX_CLUSTERS - 1
-        row_max = (1 << ip.DMA_ROWS) - 1
-        bucket_max = ip._BUCKETS - 1
-        key = (
-            (bucket_max << ip._BUCKET_SHIFT)
-            | (row_max << ip._BITS_SHIFT)
-            | id_max
-        )
-        assert key < (1 << 30)          # inactive bit 30 stays free
-        # fields round-trip
-        assert key & (ip._MAX_CLUSTERS - 1) == id_max
-        assert (key >> ip._BITS_SHIFT) & ((1 << ip.DMA_ROWS) - 1) \
-            == row_max
-        assert (key >> ip._BUCKET_SHIFT) & (ip._BUCKETS - 1) \
-            == bucket_max
-        # the counting-sort bin index never sees the inactive bit
-        bin_shift = ip._BUCKET_SHIFT + ipl._BIN_SUB_BITS
-        assert (key >> bin_shift) & (ipl._SORT_BINS - 1) \
-            == bucket_max >> ipl._BIN_SUB_BITS
-        # 1M-triangle scenes fit (the stress1m benchmark's class)
-        assert ip._MAX_CLUSTERS * ip.TRI_CHUNK >= 1_000_000
+@pytest.mark.gpu
+def test_compiled_kernels_match_xla_on_card(gpu):
+    """The Triton-compiled kernels (no interpreter) against XLA's
+    closest_hit / occluded at the smoke test's tolerance."""
+    import os
+    import sys
 
-    def test_grouped_fields_fit_int32(self):
-        """The grouped key widens the id field into the row-mask bits
-        (masks ride out-of-key): 21 id bits + the same bucket field,
-        below the inactive bit."""
-        assert ip._GID_BITS == ip._BUCKET_SHIFT   # bucket field abuts id
-        id_max = ip._GMAX_CLUSTERS - 1
-        bucket_max = ip._BUCKETS - 1
-        key = (bucket_max << ip._BUCKET_SHIFT) | id_max
-        assert key < (1 << 30)
-        assert key & (ip._GMAX_CLUSTERS - 1) == id_max
-        assert (key >> ip._BUCKET_SHIFT) & (ip._BUCKETS - 1) \
-            == bucket_max
-        # one grouped pack holds the 2.1M-triangle stress scene whole
-        assert ip._GMAX_CLUSTERS * ip.TRI_CHUNK >= 2_100_000
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke
 
-    def test_prepass_rejects_oversize(self):
-        import pytest
-
-        cmin = jnp.zeros((ip._GMAX_CLUSTERS + 1, 3), jnp.float32)
-        cmax = jnp.ones((ip._GMAX_CLUSTERS + 1, 3), jnp.float32)
-        comps = [jnp.zeros((8, 128), jnp.float32) for _ in range(6)]
-        with pytest.raises(ValueError, match="packed-key cap"):
-            ip._prepass_groups(cmin, cmax, comps, 1e-4, 1024)
-
-
-class TestGroupedPrepass:
-    def test_log2_onehot_all_bits(self):
-        """Branch-free single-bit log2 must be exact for every bit,
-        including bit 31 (m-1 wraps)."""
-        vals = jnp.left_shift(jnp.int32(1), jnp.arange(32, dtype=jnp.int32))
-        got = jax.jit(jax.vmap(ip._log2_onehot))(vals)
-        np.testing.assert_array_equal(np.asarray(got), np.arange(32))
-
-    def test_group_masks_cover_hit_clusters(self):
-        """The group prepass must never drop a (group, cluster) pair in
-        which some ray of the group hits a triangle of the cluster."""
-        geom = subdivide(cornell_box("quads"), 2).build()
-        cs = ip.CulledScene(geom)
-        n = ip.ray_batch_multiple()
-        o, d = rays(n, seed=13)
-        tiles = n // ip.RAYS_PER_TILE
-
-        def tcomp(x):
-            return (
-                x.reshape(tiles, ip.GROUPS_PER_TILE, ip.GROUP)
-                .transpose(0, 2, 1)
-                .reshape(tiles * ip.GROUP, ip.RAY_TILE)
-            )
-
-        comps = [tcomp(o[:, 0]), tcomp(o[:, 1]), tcomp(o[:, 2]),
-                 tcomp(d[:, 0]), tcomp(d[:, 1]), tcomp(d[:, 2])]
-        _, keys, gmask, _, _ = ip._cluster_list_groups(
-            cs.cluster_min, cs.cluster_max, comps, 1e-4, n
-        )
-        # gmask is (tiles, 4, cpad) in SCHEDULE order; locate each
-        # cluster's position through the sorted keys' id field
-        gm = np.asarray(gmask)
-        kid = np.asarray(keys) & (ip._GMAX_CLUSTERS - 1)
-        kact = (np.asarray(keys) & (1 << 30)) == 0
-
-        hit = cs.closest_hit(geom, o, d)
-        t = np.asarray(hit.t)
-        # recover each ray's winning reordered triangle -> cluster
-        tt, ridx = ip.pallas_closest_tuv_dma_grouped(
-            cs.tri_pack, cs.cluster_min, cs.cluster_max, o, d
-        )
-        ridx = np.asarray(ridx)
-        valid = np.isfinite(np.asarray(tt))
-        for i in np.where(valid)[0][::97]:
-            tile = i // ip.RAYS_PER_TILE
-            g = (i % ip.RAYS_PER_TILE) // ip.GROUP
-            c = ridx[i] // ip.TRI_CHUNK
-            pos = np.where(kact[tile] & (kid[tile] == c))[0]
-            assert pos.size == 1, (i, tile, g, c)
-            word, bit = g // 32, g % 32
-            assert (gm[tile, word, pos[0]] >> bit) & 1, (i, tile, g, c)
-
-
-class TestSchedStream:
-    """Chunked SMEM schedule streaming (_sched_stream): past
-    _SCHED_CHUNK entries the walk fetches the schedule in ring chunks
-    instead of holding it resident (SMEM tops out under 1 MB on the
-    chip, which capped one pack at 8k clusters in round 3). Forcing a
-    tiny chunk on a 16-cluster scene exercises chunk-boundary crossings
-    (tile unions exceed 8 clusters for in-box rays); results must be
-    BITWISE identical to the resident path."""
-
-    def test_multi_chunk_bitwise(self, monkeypatch):
-        geom = subdivide(cornell_box("quads"), 3).build()
-        cs = ip.CulledScene(geom)
-        assert cs.cluster_min.shape[0] == 16
-        n = ip.ray_batch_multiple()
-        key = jax.random.key(21)
-        ko, kd = jax.random.split(key)
-        lo = jnp.min(cs.cluster_min, axis=0)
-        hi = jnp.max(cs.cluster_max, axis=0)
-        u = jax.random.uniform(ko, (n, 3), minval=0.1, maxval=0.9)
-        o = lo + u * (hi - lo)
-        d = jax.random.normal(kd, (n, 3))
-        d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-        t0, i0 = ip.pallas_closest_tuv_dma_grouped(
-            cs.tri_pack, cs.cluster_min, cs.cluster_max, o, d
-        )
-        maxd = jnp.full((n,), 2.0)
-        b0 = ip.pallas_occluded_dma_grouped(
-            cs.tri_pack, cs.cluster_min, cs.cluster_max, o, d, maxd
-        )
-        monkeypatch.setattr(ip, "_SCHED_CHUNK", 8)
-        ip.pallas_closest_tuv_dma_grouped._clear_cache()
-        ip.pallas_occluded_dma_grouped._clear_cache()
-        try:
-            t1, i1 = ip.pallas_closest_tuv_dma_grouped(
-                cs.tri_pack, cs.cluster_min, cs.cluster_max, o, d
-            )
-            b1 = ip.pallas_occluded_dma_grouped(
-                cs.tri_pack, cs.cluster_min, cs.cluster_max, o, d, maxd
-            )
-        finally:
-            monkeypatch.undo()
-            ip.pallas_closest_tuv_dma_grouped._clear_cache()
-            ip.pallas_occluded_dma_grouped._clear_cache()
-        np.testing.assert_array_equal(np.asarray(t0), np.asarray(t1))
-        np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
-        np.testing.assert_array_equal(np.asarray(b0), np.asarray(b1))
-        assert int(np.isfinite(np.asarray(t0)).sum()) > n // 2
-
-
-class TestSCWalk:
-    """Supercluster walk (one schedule entry = 8 clusters = one
-    (16, 1024) tri DMA; members pop from a per-entry bitmap). Measured
-    a WASH on the 2.1M scene (kept flag-disabled, _SC_MIN_CLUSTERS),
-    but the machinery stays bitwise-exact — forced on here against the
-    per-cluster walk, closest-hit and any-hit, plus combined with
-    forced multi-chunk schedule streaming."""
-
-    def test_sc_walk_bitwise(self, monkeypatch):
-        geom = subdivide(cornell_box("quads"), 3).build()
-        cs = ip.CulledScene(geom)
-        n = ip.ray_batch_multiple()
-        ko, kd = jax.random.split(jax.random.key(21))
-        lo = jnp.min(cs.cluster_min, axis=0)
-        hi = jnp.max(cs.cluster_max, axis=0)
-        u = jax.random.uniform(ko, (n, 3), minval=0.1, maxval=0.9)
-        o = lo + u * (hi - lo)
-        d = jax.random.normal(kd, (n, 3))
-        d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-        maxd = jnp.full((n,), 2.0)
-        t0, i0 = ip.pallas_closest_tuv_dma_grouped(
-            cs.tri_pack, cs.cluster_min, cs.cluster_max, o, d
-        )
-        b0 = ip.pallas_occluded_dma_grouped(
-            cs.tri_pack, cs.cluster_min, cs.cluster_max, o, d, maxd
-        )
-        monkeypatch.setattr(ip, "_SC_MIN_CLUSTERS", 1)
-        monkeypatch.setattr(ip, "_SCHED_CHUNK", 8)
-        ip.pallas_closest_tuv_dma_grouped._clear_cache()
-        ip.pallas_occluded_dma_grouped._clear_cache()
-        try:
-            t1, i1 = ip.pallas_closest_tuv_dma_grouped(
-                cs.tri_pack, cs.cluster_min, cs.cluster_max, o, d
-            )
-            b1 = ip.pallas_occluded_dma_grouped(
-                cs.tri_pack, cs.cluster_min, cs.cluster_max, o, d, maxd
-            )
-        finally:
-            monkeypatch.undo()
-            ip.pallas_closest_tuv_dma_grouped._clear_cache()
-            ip.pallas_occluded_dma_grouped._clear_cache()
-        np.testing.assert_array_equal(np.asarray(t0), np.asarray(t1))
-        np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
-        np.testing.assert_array_equal(np.asarray(b0), np.asarray(b1))
-        assert int(np.isfinite(np.asarray(t0)).sum()) > n // 2
-
-
-class TestGatedPrepass:
-    """Two-level schedule (128-cluster block gate) for HBM-scale
-    scenes: the gated prepass must be BITWISE identical to the dense
-    pass — gate=0 (no ray of the tile hits the block's union AABB)
-    implies every member cluster's exact slab test misses too, by
-    float monotonicity of the slab under box inclusion."""
-
-    def _comps(self, o, d, n):
-        tiles = n // ip.RAYS_PER_TILE
-
-        def tcomp(x):
-            return (
-                x.reshape(tiles, ip.GROUPS_PER_TILE, ip.GROUP)
-                .transpose(0, 2, 1)
-                .reshape(tiles * ip.GROUP, ip.RAY_TILE)
-            )
-
-        return [tcomp(o[:, 0]), tcomp(o[:, 1]), tcomp(o[:, 2]),
-                tcomp(d[:, 0]), tcomp(d[:, 1]), tcomp(d[:, 2])], tcomp
-
-    @pytest.mark.parametrize("qgran", [32, 8])
-    @pytest.mark.parametrize("with_maxd", [False, True])
-    def test_gated_prepass_bitwise(self, monkeypatch, with_maxd,
-                                   qgran):
-        # clusters along a line (median-split-like order): block unions
-        # are disjoint, so the gate actually fires for localized rays
-        rng = np.random.default_rng(1)
-        c = 280                           # 3 blocks
-        ctr = np.stack([np.linspace(0, 400, c),
-                        rng.uniform(-5, 5, c),
-                        rng.uniform(-5, 5, c)], -1).astype(np.float32)
-        half = rng.uniform(0.1, 1.5, (c, 3)).astype(np.float32)
-        cmin = jnp.asarray(ctr - half)
-        cmax = jnp.asarray(ctr + half)
-        n = ip.ray_batch_multiple()
-        key = jax.random.key(5)
-        ko, kd = jax.random.split(key)
-        o = jax.random.uniform(ko, (n, 3), minval=-10.0, maxval=60.0)
-        d = jax.random.normal(kd, (n, 3))
-        d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-        comps, tcomp = self._comps(o, d, n)
-        maxd = tcomp(jnp.full((n,), 30.0)) if with_maxd else None
-
-        dense = ip._prepass_groups(cmin, cmax, comps, 1e-4, n,
-                                   maxd=maxd)
-        monkeypatch.setattr(ip, "_GATE_MIN_BLOCKS", 1)
-        monkeypatch.setattr(ip, "_QGRAN", qgran)
-        monkeypatch.setattr(ip, "_QPB", ip.TRI_CHUNK // qgran)
-        gated = ip._prepass_groups(cmin, cmax, comps, 1e-4, n,
-                                   maxd=maxd)
-        gate = ip._block_gate(cmin, cmax, comps, 1e-4,
-                              n // ip.RAYS_PER_TILE, c, dense[4],
-                              maxd=maxd)
-        # the scenario must exercise BOTH branches of the gate
-        assert 0.0 < float(gate.mean()) < 1.0
-        # ... and the SUB-BLOCK bits: some ON blocks must carry a
-        # strictly partial quarter word, so the in-block quarter-skip
-        # path is actually what the bitwise equality above certified
-        word = np.asarray(ip._quarter_gate(
-            cmin, cmax, comps, 1e-4, n, c, dense[4], maxd=maxd
-        ))
-        full = (1 << ip._QPB) - 1
-        assert np.any((word > 0) & (word < full))
-        for name, a, b in zip(("ghit", "tn", "texit"), dense[:3],
-                              gated[:3]):
-            np.testing.assert_array_equal(
-                np.asarray(a), np.asarray(b), err_msg=name
-            )
-
-    def test_gate_conservative_vs_member_hits(self):
-        """gate == 0 must imply the dense prepass found NO group hit
-        in that block (the monotonicity claim, checked directly)."""
-        rng = np.random.default_rng(7)
-        c = 300
-        ctr = rng.uniform(-50, 50, (c, 3)).astype(np.float32)
-        half = rng.uniform(0.05, 2.0, (c, 3)).astype(np.float32)
-        cmin = jnp.asarray(ctr - half)
-        cmax = jnp.asarray(ctr + half)
-        n = ip.ray_batch_multiple()
-        ko, kd = jax.random.split(jax.random.key(9))
-        o = jax.random.uniform(ko, (n, 3), minval=-80.0, maxval=80.0)
-        d = jax.random.normal(kd, (n, 3))
-        d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-        comps, _ = self._comps(o, d, n)
-        ghit, _, _, _, cpad = ip._prepass_groups(cmin, cmax, comps,
-                                                 1e-4, n)
-        gate = np.asarray(ip._block_gate(
-            cmin, cmax, comps, 1e-4, n // ip.RAYS_PER_TILE, c, cpad
-        ))
-        # ghit is (tiles, 8, cpad): group halfword sums, cpad-minor
-        gh = np.asarray(ghit).reshape(
-            ghit.shape[0], ip.GROUP, cpad // ip.TRI_CHUNK, ip.TRI_CHUNK
-        )
-        blocked_any = gh.sum(axis=(1, 3)) > 0
-        assert not np.any(blocked_any & (gate == 0))
-
-
-class TestGroupedAnyHit:
-    """Grouped culled any-hit (form-factor visibility backend): must
-    agree with the brute-force occluded oracle, including the segment
-    window and the two-primitive exclusion."""
-
-    def test_matches_bruteforce_segments(self):
-        geom = subdivide(cornell_box("quads"), 3).build()  # 2048 tris
-        key = jax.random.key(7)
-        ko, kd, km, ke = jax.random.split(key, 4)
-        n = 4096
-        o = jax.random.uniform(
-            ko, (n, 3), minval=-2.4, maxval=2.4
-        ) + jnp.array([0.0, 2.75, 0.0])
-        d = jax.random.normal(kd, (n, 3))
-        d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-        maxd = jax.random.uniform(km, (n,), minval=0.2, maxval=8.0)
-        ex_a = jax.random.randint(ke, (n,), -1, geom.num_prims)
-        ex_b = jax.random.randint(
-            jax.random.fold_in(ke, 1), (n,), -1, geom.num_prims
-        )
-        from tpu_pathtracer.ops.intersect import occluded
-
-        ref = np.asarray(occluded(geom, o, d, maxd, ex_a, ex_b))
-        cs = ip.CulledScene(geom)
-        got = np.asarray(cs.occluded(o, d, maxd, ex_a, ex_b))
-        np.testing.assert_array_equal(got, ref)
-
-    def test_ff_pair_segments(self):
-        """The exact shape the radiosity FF pass emits: surface-point
-        pairs with source/target exclusion (form_factors.h:144-209).
-        Same geometry/batch shapes as the segments test above so the
-        237 s interpret-mode kernel compile is paid once per suite."""
-        from tpu_pathtracer.ops.intersect import occluded
-        from tpu_pathtracer.render.radiosity import (
-            sample_uniform_on_prims,
-        )
-
-        geom = subdivide(cornell_box("quads"), 3).build()
-        n_prims = geom.num_prims
-        key = jax.random.key(19)
-        ki, kj, ku = jax.random.split(key, 3)
-        n = 4096
-        pi_idx = jax.random.randint(ki, (n,), 0, n_prims)
-        pj_idx = jax.random.randint(kj, (n,), 0, n_prims)
-        u = jax.random.uniform(ku, (4, n))
-        p_i = sample_uniform_on_prims(geom, pi_idx, u[0], u[1])
-        p_j = sample_uniform_on_prims(geom, pj_idx, u[2], u[3])
-        seg = p_j - p_i
-        r = jnp.linalg.norm(seg, axis=-1)
-        sd = seg / jnp.maximum(r, 1e-20)[:, None]
-        ni = geom.normal[pi_idx]
-        o = p_i + ni * 1e-4
-        maxd = r - 2e-4
-        ref = np.asarray(occluded(geom, o, sd, maxd, pi_idx, pj_idx))
-        cs = ip.CulledScene(geom)
-        got = np.asarray(cs.occluded(o, sd, maxd, pi_idx, pj_idx))
-        np.testing.assert_array_equal(got, ref)
-
-
-class TestMultiPart:
-    """Partitioned CulledScene (scenes past the 13-bit cluster-id cap,
-    1.05M tris/pack): forced multi-part on a small scene must match the
-    single-pack backend exactly — per-triangle math is identical, the
-    min-combine only re-distributes the same clusters across packs."""
-
-    def test_closest_hit_matches_single_pack(self):
-        geom = subdivide(cornell_box("quads"), 3).build()  # 2048 tris
-        key = jax.random.key(23)
-        ko, kd = jax.random.split(key)
-        n = 4096
-        o = jax.random.uniform(
-            ko, (n, 3), minval=-2.4, maxval=2.4
-        ) + jnp.array([0.0, 2.75, 0.0])
-        d = jax.random.normal(kd, (n, 3))
-        d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-        cs1 = ip.CulledScene(geom)
-        cs4 = ip.CulledScene(geom, max_tris_per_part=512)
-        assert len(cs4.parts) == 4 and len(cs1.parts) == 1
-        h1 = cs1.closest_hit(geom, o, d)
-        h4 = cs4.closest_hit(geom, o, d)
-        np.testing.assert_array_equal(np.asarray(h1.t), np.asarray(h4.t))
-        np.testing.assert_array_equal(
-            np.asarray(h1.prim), np.asarray(h4.prim)
-        )
-        np.testing.assert_array_equal(
-            np.asarray(h1.albedo), np.asarray(h4.albedo)
-        )
-        # pytree round-trip through a jit boundary keeps all parts
-        tj = jax.jit(lambda cs: cs.closest_hit(geom, o, d).t)(cs4)
-        np.testing.assert_array_equal(np.asarray(h4.t), np.asarray(tj))
-
-    def test_occluded_matches_single_pack(self):
-        geom = subdivide(cornell_box("quads"), 3).build()
-        key = jax.random.key(29)
-        ko, kd, km, ke = jax.random.split(key, 4)
-        n = 4096
-        o = jax.random.uniform(
-            ko, (n, 3), minval=-2.4, maxval=2.4
-        ) + jnp.array([0.0, 2.75, 0.0])
-        d = jax.random.normal(kd, (n, 3))
-        d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-        maxd = jax.random.uniform(km, (n,), minval=0.2, maxval=8.0)
-        ex_a = jax.random.randint(ke, (n,), -1, geom.num_prims)
-        cs1 = ip.CulledScene(geom)
-        cs4 = ip.CulledScene(geom, max_tris_per_part=512)
-        b1 = np.asarray(cs1.occluded(o, d, maxd, ex_a, None))
-        b4 = np.asarray(cs4.occluded(o, d, maxd, ex_a, None))
-        np.testing.assert_array_equal(b1, b4)
-
-    def test_part_cull_fires_and_is_conservative(self):
-        """The per-part AABB cull must (a) actually fire on rays
-        originating outside the scene, and (b) never park a ray that
-        the part's own kernel would hit — the slab formula mirrors the
-        prepass and is float-monotone under box inclusion."""
-        geom = subdivide(cornell_box("quads"), 3).build()
-        cs4 = ip.CulledScene(geom, max_tris_per_part=512)
-        key = jax.random.key(31)
-        ko, kd = jax.random.split(key)
-        n = 2048
-        o = jax.random.uniform(ko, (n, 3), minval=-6.0, maxval=6.0)
-        d = jax.random.normal(kd, (n, 3))
-        d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-        fired = 0
-        for part in cs4.parts:
-            may, _hi = ip.CulledScene._part_may_hit(part, o, d, 1e-4)
-            t, _ = cs4._part_tuv(part, o, d, 1e-4, None)  # unculled
-            hit_real = np.isfinite(np.asarray(t))
-            may = np.asarray(may)
-            assert not (hit_real & ~may).any(), (
-                "part cull dropped a ray with a real hit"
-            )
-            fired += int((~may).sum())
-        assert fired > 0, "cull never fired on outside-origin rays"
-
-
-class TestClusterBuckets:
-    """Compile-cache shape bucketing invariants (cluster_layout.py):
-    bucket sizes must round UP, stay multiples of the supercluster
-    quantum, respect the 21-bit id cap, and keep the worst-case pad
-    within the documented 6.7% past the small-scene regime."""
-
-    def test_bucket_invariants(self):
-        from tpu_pathtracer.ops.cluster_layout import (
-            _GMAX_CLUSTERS,
-            _SC,
-            _bucket_clusters,
-        )
-
-        prev = 0
-        for c in range(1, 5000):
-            b = _bucket_clusters(c)
-            assert b >= min(c, _GMAX_CLUSTERS)
-            assert b % _SC == 0
-            assert b <= _GMAX_CLUSTERS
-            assert b >= prev or b == _GMAX_CLUSTERS  # monotone in c
-            prev = b
-            if c > 128:
-                assert (b - c) / c <= 1.0 / 15 + 1e-9  # <= 6.7% pad
-        # spot values from the shipped scenes
-        assert _bucket_clusters(16408) == 17408   # stress2m
-        assert _bucket_clusters(795) == 800       # stress100k
-        # huge scenes clamp to the id cap instead of overflowing
-        assert _bucket_clusters(_GMAX_CLUSTERS + 5) == _GMAX_CLUSTERS
+    chip_smoke.phase_kernels(n=4096)

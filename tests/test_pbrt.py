@@ -7,8 +7,8 @@ import struct
 import numpy as np
 import pytest
 
-from tpu_pathtracer.core.constants import MATERIAL_MIRROR
-from tpu_pathtracer.scene.pbrt_loader import (
+from pathtracer.core.constants import MATERIAL_MIRROR
+from pathtracer.scene.pbrt_loader import (
     load_pbrt,
     parse_pbrt,
     read_ply,

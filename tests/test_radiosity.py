@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.core import rng
-from tpu_pathtracer.render.radiosity import (
+from pathtracer.core import rng
+from pathtracer.render.radiosity import (
     RADIOSITY_HISTORY,
     analytic_form_factors,
     direction_to_cell,
@@ -16,7 +16,7 @@ from tpu_pathtracer.render.radiosity import (
     sample_uniform_on_prims,
     solve_radiosity,
 )
-from tpu_pathtracer.scene.mesh import PrimList
+from pathtracer.scene.mesh import PrimList
 
 
 def parallel_squares(dist=1.0, side=1.0, emit=0.0):
@@ -243,11 +243,11 @@ class TestShooting:
     def test_matches_gather_solution(self):
         import jax
 
-        from tpu_pathtracer.render.radiosity import (
+        from pathtracer.render.radiosity import (
             solve_radiosity_shooting,
         )
-        from tpu_pathtracer.scene.builtin import cornell_box
-        from tpu_pathtracer.scene.mesh import subdivide
+        from pathtracer.scene.builtin import cornell_box
+        from pathtracer.scene.mesh import subdivide
 
         geom = subdivide(cornell_box("quads"), 1).build()  # 64 prims
         key = jax.random.key(12345)
@@ -280,11 +280,11 @@ class TestShooting:
         converged gather solution (and never hurt a drained solve)."""
         import jax
 
-        from tpu_pathtracer.render.radiosity import (
+        from pathtracer.render.radiosity import (
             solve_radiosity_shooting,
         )
-        from tpu_pathtracer.scene.builtin import cornell_box
-        from tpu_pathtracer.scene.mesh import subdivide
+        from pathtracer.scene.builtin import cornell_box
+        from pathtracer.scene.mesh import subdivide
 
         geom = subdivide(cornell_box("quads"), 1).build()
         key = jax.random.key(3)
@@ -318,12 +318,12 @@ class TestShooting:
         < 1 plus the per-channel energy clamp)."""
         import jax
 
-        from tpu_pathtracer.render.radiosity import (
+        from pathtracer.render.radiosity import (
             _shoot_step,
         )
-        from tpu_pathtracer.scene.builtin import cornell_box
-        from tpu_pathtracer.scene.mesh import subdivide
-        from tpu_pathtracer.core.constants import GRID_SIZE
+        from pathtracer.scene.builtin import cornell_box
+        from pathtracer.scene.mesh import subdivide
+        from pathtracer.core.constants import GRID_SIZE
 
         geom = subdivide(cornell_box("quads"), 1).build()
         n = geom.num_prims
@@ -332,7 +332,7 @@ class TestShooting:
         _, _, _, _, st = _shoot_step(
             geom, jax.random.key(0), geom.emission, geom.emission,
             z, zc, jnp.int32(0), k=8, n_samples=64, row_chunk=8,
-            occlusion_packs=None,
+            accel=None,
         )
         shot, delivered, reflected = np.asarray(st)
         assert (shot > 0).all()
@@ -347,12 +347,12 @@ class TestShooting:
         binning granularity; compare per-prim grid luminance sums."""
         import jax
 
-        from tpu_pathtracer.core.math_utils import luminance
-        from tpu_pathtracer.render.radiosity import (
+        from pathtracer.core.math_utils import luminance
+        from pathtracer.render.radiosity import (
             solve_radiosity_shooting,
         )
-        from tpu_pathtracer.scene.builtin import cornell_box
-        from tpu_pathtracer.scene.mesh import subdivide
+        from pathtracer.scene.builtin import cornell_box
+        from pathtracer.scene.mesh import subdivide
 
         geom = subdivide(cornell_box("quads"), 1).build()
         key = jax.random.key(7)
@@ -389,11 +389,11 @@ class TestGridRefresh:
     def test_refresh_replaces_grids_keeps_b(self):
         import jax
 
-        from tpu_pathtracer.render.radiosity import (
+        from pathtracer.render.radiosity import (
             solve_radiosity_shooting,
         )
-        from tpu_pathtracer.scene.builtin import cornell_box
-        from tpu_pathtracer.scene.mesh import subdivide
+        from pathtracer.scene.builtin import cornell_box
+        from pathtracer.scene.mesh import subdivide
 
         geom = subdivide(cornell_box("quads"), 1).build()  # 64 prims
         kw = dict(steps=8, shooters_per_step=8, mc_samples=2,

@@ -7,19 +7,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.core import rng
-from tpu_pathtracer.parallel.sharding import (
+from pathtracer.core import rng
+from pathtracer.parallel.sharding import (
     TiledRenderer,
     make_mesh,
     mc_form_factors_sharded,
 )
-from tpu_pathtracer.render.camera import CameraController
-from tpu_pathtracer.render.radiosity import mc_form_factors
-from tpu_pathtracer.render.renderer import (
+from pathtracer.render.camera import CameraController
+from pathtracer.render.radiosity import mc_form_factors
+from pathtracer.render.renderer import (
     ProgressiveRenderer,
     RenderSettings,
 )
-from tpu_pathtracer.scene.builtin import cornell_box
+from pathtracer.scene.builtin import cornell_box
 
 
 @pytest.fixture(scope="module")
@@ -100,6 +100,23 @@ class TestTiledRender:
         assert tiled.total_rays >= lanes
         assert tiled.total_rays <= 2 * lanes
 
+    def test_second_pass_reuses_executable(self, scene):
+        """The film starts with the shardings a pass returns, so pass 2
+        does not compile the tiled program again."""
+        from pathtracer.parallel.sharding import render_pass_tiled
+
+        geom, cam = scene
+        s = RenderSettings(
+            width=16, height=24, max_depth=2, spp_per_pass=1, ray_chunk=64,
+        )
+        tiled = TiledRenderer(geom, cam, s, seed=4)
+        tiled.step()
+        compiled = render_pass_tiled._cache_size()
+        tiled.step()
+        tiled.step()
+        assert render_pass_tiled._cache_size() == compiled
+        assert int(tiled.film.spp) == 3
+
 
 class TestShardedFormFactors:
     def test_matches_unsharded_bitwise(self):
@@ -133,20 +150,28 @@ class TestShardedFormFactors:
                                       np.asarray(ff_u2))
 
     def test_launch_split_invariant(self):
-        """The watchdog launch splitting must not change the matrix:
-        every launch group keys its RNG by global chunk offset."""
+        """Row bands launched apart, each keyed by its global chunk
+        offset, rebuild the one-launch matrix bitwise (what every
+        row-banded caller relies on)."""
+        import jax.numpy as jnp
+
+        from pathtracer.render.radiosity import mc_form_factors_rows
+
         geom = cornell_box("quads").build()
         key = rng.base_key(9)
         one, gc1, gv1 = mc_form_factors(
             geom, key, n_samples=16, row_chunk=2
         )
-        split, gc2, gv2 = mc_form_factors(
-            geom, key, n_samples=16, row_chunk=2, _rows_per_call=4
-        )
-        np.testing.assert_array_equal(np.asarray(one),
-                                      np.asarray(split))
-        np.testing.assert_array_equal(np.asarray(gv1),
-                                      np.asarray(gv2))
+        rows = jnp.arange(geom.num_prims, dtype=jnp.int32)
+        parts = [
+            mc_form_factors_rows(geom, key, rows[s:s + 4], n_samples=16,
+                                 row_chunk=2, chunk_offset=s // 2)
+            for s in range(0, geom.num_prims, 4)
+        ]
+        split, gv2 = (np.concatenate([np.asarray(p[i]) for p in parts])
+                      for i in (0, 2))
+        np.testing.assert_array_equal(np.asarray(one), split)
+        np.testing.assert_array_equal(np.asarray(gv1), gv2)
 
 
 class TestShardedShooting:
@@ -156,15 +181,15 @@ class TestShardedShooting:
         streams, local reflect + all_gather. Bitwise on radiosity."""
         import jax
 
-        from tpu_pathtracer.parallel.sharding import (
+        from pathtracer.parallel.sharding import (
             make_mesh,
             solve_radiosity_shooting_sharded,
         )
-        from tpu_pathtracer.render.radiosity import (
+        from pathtracer.render.radiosity import (
             solve_radiosity_shooting,
         )
-        from tpu_pathtracer.scene.builtin import cornell_box
-        from tpu_pathtracer.scene.mesh import subdivide
+        from pathtracer.scene.builtin import cornell_box
+        from pathtracer.scene.mesh import subdivide
 
         geom = subdivide(cornell_box("quads"), 1).build()  # 64 prims
         key = jax.random.key(11)
@@ -195,8 +220,8 @@ class TestShardedShooting:
 class TestTiledGuided:
     def test_tiled_mis_render(self, scene):
         """Guided MIS sampling through the multi-chip tiled path."""
-        from tpu_pathtracer.core.constants import SAMPLING_MIS
-        from tpu_pathtracer.ops.guiding import build_cdfs
+        from pathtracer.core.constants import SAMPLING_MIS
+        from pathtracer.ops.guiding import build_cdfs
         import jax.numpy as jnp
 
         geom, cam = scene
@@ -229,15 +254,15 @@ class TestShardedSolve:
         import jax
         import jax.numpy as jnp
 
-        from tpu_pathtracer.parallel.sharding import (
+        from pathtracer.parallel.sharding import (
             make_mesh,
             solve_radiosity_sharded,
         )
-        from tpu_pathtracer.render.radiosity import solve_radiosity
-        from tpu_pathtracer.scene.builtin import cornell_box
-        from tpu_pathtracer.scene.mesh import subdivide
+        from pathtracer.render.radiosity import solve_radiosity
+        from pathtracer.scene.builtin import cornell_box
+        from pathtracer.scene.mesh import subdivide
 
-        from tpu_pathtracer.render.radiosity import (
+        from pathtracer.render.radiosity import (
             radiosity_step,
             rebin_radiosity_grid,
         )
@@ -274,30 +299,17 @@ class TestShardedSolve:
         )
 
 
-class TestTiledCulled:
-    """Multi-chip tiled rendering through the cluster-culled Pallas
-    backend — HBM-scale scenes across the mesh. The backend is
-    replicated like the scene; per-pixel sums are lane-order invariant
-    (pixel-keyed RNG, same-pixel respawn), so the gathered film must be
-    bitwise identical to the single-chip culled render."""
+class TestTiledAccel:
+    """Multi-device tiled rendering through each intersection structure
+    (ops/dispatch), replicated like the scene. Per-pixel sums are
+    lane-order invariant (pixel-keyed RNG, same-pixel respawn), so the
+    gathered film must be bitwise identical to the single-device render
+    through the same structure."""
 
-    @pytest.fixture(autouse=True)
-    def interpret_mode(self, monkeypatch):
-        # CPU runs the Pallas kernels in interpreter mode (same patch
-        # as tests/test_pallas_kernels.py)
-        import tpu_pathtracer.ops.intersect_pallas as ip
-
-        orig = ip.pl.pallas_call
-
-        def patched(*a, **k):
-            k["interpret"] = True
-            return orig(*a, **k)
-
-        monkeypatch.setattr(ip.pl, "pallas_call", patched)
-
-    def test_tiled_culled_matches_single_chip_bitwise(self):
-        from tpu_pathtracer.ops.intersect_pallas import CulledScene
-        from tpu_pathtracer.scene.mesh import subdivide
+    @pytest.mark.parametrize("backend", ["triton", "bvh"])
+    def test_tiled_matches_single_chip_bitwise(self, backend):
+        from pathtracer.ops.dispatch import build_accel
+        from pathtracer.scene.mesh import subdivide
 
         geom = subdivide(cornell_box("quads"), 2).build()  # 512 tris
         cam = CameraController.default().build()
@@ -305,10 +317,10 @@ class TestTiledCulled:
             width=32, height=32, max_depth=3, spp_per_pass=1,
             ray_chunk=1024,
         )
-        cs = CulledScene(geom)
-        single = ProgressiveRenderer(geom, cam, s, seed=7, culled=cs)
+        accel = build_accel(geom, backend, interpret=True)
+        single = ProgressiveRenderer(geom, cam, s, seed=7, accel=accel)
         single.step()
-        tiled = TiledRenderer(geom, cam, s, seed=7, culled=cs)
+        tiled = TiledRenderer(geom, cam, s, seed=7, accel=accel)
         tiled.step()
         np.testing.assert_array_equal(
             np.asarray(tiled.gather_film().accum),

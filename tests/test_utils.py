@@ -8,16 +8,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_pathtracer.render.film import Film
-from tpu_pathtracer.utils.logger import configure, get_logger, log_ray_stats
-from tpu_pathtracer.utils.png import (
+from pathtracer.render.film import Film
+from pathtracer.utils.logger import configure, get_logger, log_ray_stats
+from pathtracer.utils.png import (
     png_bytes,
     read_png,
     write_png,
     write_png_bottom_up,
 )
-from tpu_pathtracer.utils.profiler import Profiler
-from tpu_pathtracer.viewer.heatmap import (
+from pathtracer.utils.profiler import Profiler
+from pathtracer.viewer.heatmap import (
     grid_heatmap,
     heat_colormap,
     top_k_overlay,
@@ -140,8 +140,8 @@ class TestFilm:
 
 class TestProfilerSvg:
     def test_svg_renders_history_and_guides(self):
-        from tpu_pathtracer.utils.profiler import Profiler
-        from tpu_pathtracer.viewer.profgraph import profiler_svg
+        from pathtracer.utils.profiler import Profiler
+        from pathtracer.viewer.profgraph import profiler_svg
 
         p = Profiler()
         for i in range(130):          # overflow the 120-frame ring
